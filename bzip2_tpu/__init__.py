@@ -1,12 +1,13 @@
-"""bzip2_tpu — a TPU-native bzip2 codec framework.
+"""bzip2_tpu — a device-accelerated bzip2 codec framework.
 
 A from-scratch reimplementation of the bzip2 format (byte-compatible with
 bzip2/libbzip2 1.0.x streams, including the "accelerated bzip2" 1.0.6x
-fork's output) with a JAX/XLA compute path designed for TPUs:
+fork's output) with a JAX/XLA compute path for accelerators (an NVIDIA
+H100 today):
 
 * block-data-parallel encoding over ``jax.sharding.Mesh`` (blocks are
   independent by format design),
-* vectorized BWT (prefix-doubling sort), MTF/RLE2, MXU-matmul group search,
+* vectorized BWT (prefix-doubling sort), MTF/RLE2, matmul group search,
   and device-side bit packing,
 * a C++ host runtime for the serial stages (exact-heap Huffman, streaming
   block decode),
@@ -36,11 +37,14 @@ def BZ2File(*args, **kwargs):
     return BZ2TFile(*args, **kwargs)
 
 
-def enable_tpu_backend(**engine_kwargs) -> None:
-    """Register the JAX engine as the default compression backend."""
+def enable_tpu_backend(**engine_kwargs):
+    """Register a JAX device ``Engine(**engine_kwargs)`` as the default
+    compression backend ("tpu" is the backend's historical name); returns
+    the engine."""
     from . import api
     from .engine import Engine
 
     eng = Engine(**engine_kwargs)
     api.register_block_encoder("tpu", lambda blocks, level: eng.encode_payloads(blocks, level))
     api.set_default_backend("tpu")
+    return eng

@@ -4,8 +4,9 @@
 Mirrors BZ2_bzBuffToBuffCompress/Decompress semantics (reference
 bzlib.c:1309-1410): a single whole stream per call, with distinct error
 classes for corruption vs truncation.  The block codec backend is pluggable:
-``backend="oracle"`` uses the NumPy reference implementation; the JAX engine
-registers itself as ``backend="tpu"`` (default when available).
+``backend="oracle"`` uses the NumPy reference implementation; the JAX device
+engine registers itself as ``backend="tpu"`` (``enable_tpu_backend()``; the
+name is historical, the engine runs on whatever device JAX has).
 """
 from __future__ import annotations
 
@@ -157,7 +158,7 @@ def decompress_with_tail(data, multi_stream: bool = False,
     if backend is None:
         backend = "native" if _native_available() else "oracle"
     if backend in ("device", "tpu"):
-        # TPU decode path (bzip2_tpu/decoder.py): device Huffman/MTF^-1/
+        # device decode path (bzip2_tpu/decoder.py): device Huffman/MTF^-1/
         # RLE2/inverse-BWT/RLE1^-1/CRC with host light-parse; anomalous
         # batches are healed on the host per batch.
         from .decoder import default_decoder

@@ -9,7 +9,7 @@ represent partial streams as ``(bytes, nbits)`` pairs and provide:
 * ``BitReader`` — scalar reads for header parsing plus bulk access;
 * ``splice`` — concatenate bit buffers at arbitrary bit offsets (vectorized
   byte shifting), used to merge independently-encoded blocks (possibly coming
-  back from different TPU devices/hosts) into one stream.
+  back from different devices/hosts) into one stream.
 """
 from __future__ import annotations
 

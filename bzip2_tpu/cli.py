@@ -143,7 +143,7 @@ def _parse_args(argv, prog_name):
 
 
 def _banner() -> str:
-    return (f"{PROG}: TPU-native bzip2 codec, version {_version}.\n"
+    return (f"{PROG}: device-accelerated bzip2 codec, version {_version}.\n"
             "Format-compatible with bzip2/libbzip2; JAX/XLA compute path.\n")
 
 
@@ -212,7 +212,7 @@ def _decompress_stream(fin, fout, quiet, force, backend=None):
     """Multi-member decode with trailing-garbage tolerance; returns
     (ok, saw_magic)."""
     if backend in ("device", "tpu"):
-        # TPU decode path: whole-buffer batched device decode
+        # device decode path: whole-buffer batched device decode
         data = fin.read()
         if not data:
             raise api.DataErrorMagic("empty input")
@@ -439,7 +439,7 @@ def main(argv=None, prog_name=None) -> int:
             import bzip2_tpu
             bzip2_tpu.enable_tpu_backend()
         except Exception as e:
-            _err(f"cannot enable tpu backend: {e}")
+            _err(f"cannot enable device backend: {e}")
             return EXIT_ENV
     try:
         if not files or files == ["-"]:

@@ -1,8 +1,8 @@
 """Host memory policy for performance-critical paths.
 
-This VM class (and many cloud sandboxes) services first-touch page faults
-extremely slowly (~90us/page measured here — ~11 MB/s of fresh memory),
-while re-used pages run at full speed.  Two mitigations:
+Some VM classes service first-touch page faults extremely slowly (an
+earlier development VM measured ~90us/page, ~11 MB/s of fresh memory),
+while re-used pages run at full speed; the H100 host is not yet measured.  Two mitigations:
 
 * ``set_malloc_retention()`` — raise glibc's mmap/trim thresholds so large
   numpy buffers live on the heap and freed memory is retained for reuse

@@ -1,4 +1,4 @@
-"""JAX/XLA/Pallas compute kernels for the TPU-native block codec.
+"""JAX compute kernels for the batched block codec.
 
 Every op here is jit-compatible, operates on batches of padded blocks with
 static shapes, and is validated element-for-element against the NumPy oracle

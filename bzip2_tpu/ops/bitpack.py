@@ -36,8 +36,7 @@ def pack_fields(vals: jnp.ndarray, lens: jnp.ndarray, n_words: int):
     flat = jnp.zeros(B * n_words, jnp.uint32)
     base = jnp.arange(B, dtype=jnp.int32)[:, None] * n_words
     # offsets are nondecreasing within a lane and lanes are disjoint, so
-    # both flattened index streams are sorted — declare it (the TPU
-    # scatter-add path is measurably faster for sorted indices)
+    # both flattened index streams are sorted — declare it
     flat = flat.at[(base + w).reshape(-1)].add(
         hi.reshape(-1), indices_are_sorted=True)
     flat = flat.at[(base + w + 1).reshape(-1)].add(

@@ -3,7 +3,7 @@ expansion and inverse BWT as XLA programs.
 
 The reference decodes a block with one bit-serial coroutine
 (decompress.c:476-664 symbol loop, :767-790 + bzlib_private.h:442-444
-inverse BWT).  The TPU formulation splits it into data-parallel stages:
+inverse BWT).  The batched formulation splits it into data-parallel stages:
 
 * **Symbol decode** — the host light-scan (native bz2tpu_parse_block)
   provides each 50-symbol group's start bit offset, which removes the

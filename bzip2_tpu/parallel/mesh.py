@@ -8,14 +8,11 @@ of per-block bit lengths, whose output sharding is declared replicated;
 SURVEY §2.3).  Compressed payload words stay device-sharded until the
 host gathers them in block order for the bit splice.
 
-Why annotations and not ``shard_map``: measured on the real chip
-(2026-08-20), the shard_map-wrapped fused encoder ran 15-30x slower than
-the identical plain-jit program (22-58 s vs 1.5 s per 9-block -9 batch;
-~11 s even with pallas disabled) — the manual-partitioning path compiles
-this sort/scan-heavy program pathologically on this backend, while
-sharding annotations reproduce plain-jit performance exactly (1.48 s)
-because every op is batched along the sharded axis and partitions
-trivially.
+Why annotations and not ``shard_map``: every op is batched along the
+sharded axis and partitions trivially, so the annotated program is the
+plain-jit program per device.  (On an earlier accelerator the
+shard_map-wrapped encoder compiled far slower schedules; not yet compared
+on the H100.)
 """
 from __future__ import annotations
 
@@ -88,12 +85,9 @@ def build_sharded_decoder(mesh: Mesh, level: int, wt: int, G: int,
     NOUT = N + N // 4 + 64
 
     # FOUR stage jits chained with explicit syncs, mirroring the
-    # single-chip decoder (decoder.py): one fused pipeline jit measured
-    # 4.3x slower there and catastrophically slower (~170 s/batch) under
-    # SPMD partitioning — XLA's scheduling of the chained scans and
-    # while_loops degrades badly when fused.  Every array is batched on
-    # the block axis (decode_symbols_rows keeps the bit buffer as
-    # per-block rows), so each stage partitions along it cleanly.
+    # single-chip decoder (decoder.py).  Every array is batched on the
+    # block axis (decode_symbols_rows keeps the bit buffer as per-block
+    # rows), so each stage partitions along it cleanly.
     def grp_symbols(words, goff, gsel, gvalid, lens6, alpha):
         lut1, lut2, ebase = D.build_tables(lens6, alpha)
         return D.decode_symbols_rows(words, goff, gsel, gvalid, lut1,
@@ -106,9 +100,8 @@ def build_sharded_decoder(mesh: Mesh, level: int, wt: int, G: int,
     def grp_tail(out, n_out, ok):
         raw, out_len, fits = D.rle1_inverse(out, n_out, NOUT)
         # no device CRC: the raw bytes are host-gathered for the splice
-        # anyway, where the slice-by-8 C++ CRC is ~40x cheaper than the
-        # GF(2) device fold (measured 6.2 s of an 11 s batch wall) — the
-        # same decision the single-chip decoder documents (decoder.py)
+        # anyway, where the slice-by-8 C++ CRC checks them — the same
+        # decision the single-chip decoder documents (decoder.py)
         return raw.astype(jnp.uint8), out_len, ok & fits
 
     # D.ibwt participates in the key: the jits trace it once, and tests

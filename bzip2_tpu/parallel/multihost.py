@@ -37,7 +37,7 @@ from .. import constants as C
 def initialize(coordinator_address: str, num_processes: int,
                process_id: int, local_device_count: int | None = None):
     """jax.distributed bring-up (CPU backend uses Gloo for cross-process
-    collectives; TPU pods use the platform fabric)."""
+    collectives; GPUs use NCCL)."""
     import jax
     if local_device_count is not None:
         jax.config.update("jax_num_cpu_devices", local_device_count)

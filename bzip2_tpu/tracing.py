@@ -3,7 +3,7 @@ VPrintf on stderr, bzlib_private.h:97-108 + per-block diagnostics in
 compress.c:259-262,304-308,544-550 and bzip2.c:381-405).
 
 The framework keeps the same 0-4 verbosity contract (CLI ``-v`` repeats)
-and adds what a TPU deployment actually needs: structured per-block
+and adds what a device deployment actually needs: structured per-block
 metrics and an XLA profiler trace hook.
 
   set_verbosity(2)                # or CLI -vv

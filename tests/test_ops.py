@@ -97,3 +97,40 @@ def test_huffman_lanes_vs_oracle(jitted, rng):
             exp = make_code_lengths(freqs[l, :a], a)
             assert np.array_equal(lens[l, :a], exp), (kind, l)
             assert np.array_equal(codes[l, :a], assign_codes(exp, a)), (kind, l)
+
+
+@pytest.mark.parametrize("slack", [16, 32, 64])
+def test_bwt_batched_power_of_two_slack(jitted, rng, slack):
+    """The longest block leaves exactly ``slack`` pad columns, so the
+    doubling pass with k == slack reads the pad mirror's last slot (N-1),
+    which shorter lanes also target: the mirror scatter must give that
+    slot the kept lane's value whatever the backend's duplicate order."""
+    N = 1024
+    period = rng.integers(97, 123, 100).astype(np.uint8)   # ties past k=64
+    blocks = np.zeros((3, N), np.uint8)
+    ns = np.array([N - slack, N - slack - 37, 200], np.int32)
+    blocks[0, :ns[0]] = np.tile(period, N // 100 + 1)[:ns[0]]
+    blocks[1, :ns[1]] = rng.integers(97, 100, ns[1])
+    blocks[2, :ns[2]] = rng.integers(0, 256, ns[2])
+    last, optr, _ = jitted["bwt"](jnp.asarray(blocks), jnp.asarray(ns))
+    last, optr = np.asarray(last), np.asarray(optr)
+    for b in range(3):
+        exp_last, exp_ptr = obwt(blocks[b, :ns[b]])
+        assert np.array_equal(last[b, :ns[b]], exp_last), b
+        assert optr[b] == exp_ptr, b
+
+
+def test_group_hist_matches_numpy_count(rng):
+    from bzip2_tpu.constants import G_SIZE, MAX_ALPHA_SIZE
+    from bzip2_tpu.ops.groupsearch import build_group_hist
+    B, M = 2, 1003
+    mtfv = rng.integers(0, MAX_ALPHA_SIZE, (B, M)).astype(np.int32)
+    n_mtf = np.array([M, 517], np.int32)
+    got = np.asarray(build_group_hist(jnp.asarray(mtfv), jnp.asarray(n_mtf)))
+    G = -(-M // G_SIZE)
+    assert got.shape == (B, G, MAX_ALPHA_SIZE)
+    for b in range(B):
+        for g in range(G):
+            seg = mtfv[b, g * G_SIZE: min((g + 1) * G_SIZE, n_mtf[b])]
+            want = np.bincount(seg, minlength=MAX_ALPHA_SIZE)
+            assert np.array_equal(got[b, g], want), (b, g)

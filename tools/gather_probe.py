@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Microbenchmark: random-gather rounds on the real chip — the cost model
+"""Microbenchmark: random-gather rounds on the device — the cost model
 for a pointer-doubling (list-ranking) inverse BWT."""
 import os
 import sys
@@ -14,9 +14,8 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".bench_cache"))
+    from bzip2_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     B, N = 8, 1 << 20
     rng = np.random.default_rng(0)
 
